@@ -3,7 +3,7 @@
 // The reference consumed this capability through FAISS's C++ IndexFlatIP
 // (reference src/pipelines/training.py:646-697). This is the framework's
 // own native searcher, used by the host-side serving path
-// (ttamm_tpu/serve/) when no TPU is attached.
+// (ttamm/serve/) when no accelerator is attached.
 //
 // Layout: queries are processed in tiles of kQueryTile; each item block is
 // read ONCE per tile instead of once per query, so the corpus sweep — the
@@ -16,7 +16,7 @@
 // the top-k.
 //
 // Build: `make -C native` -> libttamm_native.so (loaded via ctypes from
-// ttamm_tpu/serve/native_bridge.py; pybind11 is intentionally not used —
+// ttamm/serve/native_bridge.py; pybind11 is intentionally not used —
 // the ABI is a single C function).
 
 #include <algorithm>

@@ -47,8 +47,8 @@ def main() -> None:
     import jax.numpy as jnp
 
     from __graft_entry__ import _model_cfg_dict
-    from ttamm_tpu.models import parse_model_config
-    from ttamm_tpu.parallel import (
+    from ttamm.models import parse_model_config
+    from ttamm.parallel import (
         MeshConfig,
         build_mesh,
         make_sharded_train_step,
@@ -57,9 +57,9 @@ def main() -> None:
         place_data,
         place_state,
     )
-    from ttamm_tpu.train import TrainStepConfig, create_train_state
-    from ttamm_tpu.train.optim import parse_dense_opt_config
-    from ttamm_tpu.train.state import BatchData
+    from ttamm.train import TrainStepConfig, create_train_state
+    from ttamm.train.optim import parse_dense_opt_config
+    from ttamm.train.state import BatchData
 
     n_avail = len(jax.devices())
     max_devices = min(args.max_devices or n_avail, n_avail)

@@ -1,16 +1,16 @@
 #!/usr/bin/env python
-"""Execute the ragged all-to-all exchange on real hardware (VERDICT r2 #2).
+"""Execute the ragged all-to-all exchange on one accelerator.
 
 The ``ragged`` exchange layout (``parallel/exchange.py
-_ragged_exchange_rows``) is TPU-only — XLA:CPU has no ragged-all-to-all
-thunk — and the attached machine has one chip, so the multi-shard tests
-run it with an emulated collective (tests/test_exchange.py). This script
-supplies the missing piece: a degenerate 1x1-mesh run on the attached
-chip that lowers and executes the REAL ``lax.ragged_all_to_all``
-end to end (S=1: every offset/size array is live, the thunk runs, the
-data round-trips through it), plus the full hybrid train step compiled
-with ``embedding_exchange='alltoall'`` whose auto layout selects ragged
-on TPU.
+_ragged_exchange_rows``) needs an accelerator backend — XLA:CPU has no
+ragged-all-to-all thunk — so the multi-shard CPU tests run it with an
+emulated collective (tests/test_exchange.py). This script runs a
+degenerate 1x1-mesh lookup on one device that lowers and executes the REAL
+``lax.ragged_all_to_all`` end to end (S=1: every offset/size array is
+live, the thunk runs, the data round-trips through it), plus the full
+hybrid train step compiled with ``embedding_exchange='alltoall'``.
+``chip_smoke.py --multi`` runs it across four cards against the dense
+layout.
 
 Usage: python scripts/check_ragged_exchange.py  (prints one JSON line)
 """
@@ -30,8 +30,8 @@ def main() -> None:
     import jax
     import jax.numpy as jnp
 
-    from ttamm_tpu.parallel import MeshConfig, build_mesh
-    from ttamm_tpu.parallel.exchange import make_exchange_lookup
+    from ttamm.parallel import MeshConfig, build_mesh
+    from ttamm.parallel.exchange import make_exchange_lookup
 
     backend = jax.default_backend()
     mesh = build_mesh(MeshConfig(data_parallel=1, model_parallel=1))
@@ -59,15 +59,14 @@ def main() -> None:
         np.allclose(np.asarray(jax.device_get(g)), np.asarray(g_ref), atol=1e-6)
     )
 
-    # Full hybrid step with the alltoall exchange (auto layout -> ragged
-    # on TPU) on the 1x1 mesh.
+    # Full hybrid step with the alltoall exchange on the 1x1 mesh.
     sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "tests"))
     import os
 
     step_loss = None
     try:
         from test_parallel import _setup, U, I, B
-        from ttamm_tpu.parallel import (
+        from ttamm.parallel import (
             make_sharded_train_step, pad_batch_data, pad_state_rows,
             place_data, place_state,
         )

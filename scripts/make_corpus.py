@@ -3,7 +3,7 @@
 
 The reference repo does not distribute the real books.csv / users.csv
 (only 10-row trimmed samples), so full-scale runs here use the synthetic
-generator (``ttamm_tpu/data/synthetic.py``: per-user category preference +
+generator (``ttamm/data/synthetic.py``: per-user category preference +
 zipf popularity, schema-identical to the reference loaders'
 ``src/data/loaders.py:40,60`` expectations).
 
@@ -50,7 +50,7 @@ def main() -> None:
     )
     args = ap.parse_args()
 
-    from ttamm_tpu.data.synthetic import write_synthetic_csvs
+    from ttamm.data.synthetic import write_synthetic_csvs
 
     t0 = time.time()
     write_synthetic_csvs(

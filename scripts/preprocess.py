@@ -29,13 +29,13 @@ def main() -> None:
     )
     args = parser.parse_args()
 
-    from ttamm_tpu.data import (
+    from ttamm.data import (
         build_item_categories,
         build_training_dataset,
         load_dataset,
         pack_positives,
     )
-    from ttamm_tpu.utils import load_config
+    from ttamm.utils import load_config
 
     config = load_config(args.config)
     data_cfg = dict(config.get("data", {}))

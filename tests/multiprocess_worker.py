@@ -35,7 +35,7 @@ import numpy as np  # noqa: E402
 from jax.sharding import NamedSharding, PartitionSpec as P  # noqa: E402
 
 from test_parallel import _setup, U, I, B  # noqa: E402
-from ttamm_tpu.parallel import (  # noqa: E402
+from ttamm.parallel import (  # noqa: E402
     MeshConfig,
     build_mesh,
     make_sharded_train_step,
@@ -43,7 +43,7 @@ from ttamm_tpu.parallel import (  # noqa: E402
     pad_batch_data,
     pad_state_rows,
 )
-from ttamm_tpu.parallel.sharding import (  # noqa: E402
+from ttamm.parallel.sharding import (  # noqa: E402
     batch_sharding,
     data_shardings,
     state_shardings,
@@ -100,7 +100,7 @@ if ckpt_dir is not None:
     # template, continue training — continuation must be exact.
     import jax.experimental.multihost_utils as mhu
 
-    from ttamm_tpu.train import load_sharded_checkpoint, save_sharded_checkpoint
+    from ttamm.train import load_sharded_checkpoint, save_sharded_checkpoint
 
     path = save_sharded_checkpoint(
         ckpt_dir, state1, experiment_name="mp", epoch=1,

@@ -3,7 +3,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ttamm_tpu.models import augment, init_mimic_tables, mimic_forward
+from ttamm.models import augment, init_mimic_tables, mimic_forward
 
 
 def test_shapes_preserved_and_losses_nonnegative():
@@ -64,7 +64,7 @@ def test_invalid_sizes_raise():
 
 
 def _tiny_cfg(mimic_sparse: bool):
-    from ttamm_tpu.models import parse_model_config
+    from ttamm.models import parse_model_config
 
     raw = {
         "user_encoder": {
@@ -100,9 +100,9 @@ def _tiny_cfg(mimic_sparse: bool):
 
 
 def _tiny_setup(mimic_sparse: bool, weight_decay: float, clip: float | None = None):
-    from ttamm_tpu.train import TrainStepConfig, create_train_state, make_train_step
-    from ttamm_tpu.train.optim import parse_dense_opt_config
-    from ttamm_tpu.train.state import BatchData
+    from ttamm.train import TrainStepConfig, create_train_state, make_train_step
+    from ttamm.train.optim import parse_dense_opt_config
+    from ttamm.train.state import BatchData
 
     cfg = _tiny_cfg(mimic_sparse)
     num_users, num_items = 40, 30
@@ -142,8 +142,8 @@ def _tiny_setup(mimic_sparse: bool, weight_decay: float, clip: float | None = No
 def test_mimic_sparse_routes_tables_and_updates_lazily():
     # adaptive_mimic.sparse=True: aug tables join the sparse-row optimizer
     # (scratch row appended) and only batch rows are touched per step —
-    # the TPU scaling mode for multi-million-row corpora.
-    from ttamm_tpu.train.state import dense_table_names, sparse_table_names
+    # the scaling mode for multi-million-row corpora.
+    from ttamm.train.state import dense_table_names, sparse_table_names
 
     cfg, state, data, tscfg, step = _tiny_setup(True, weight_decay=0.01)
     assert sparse_table_names(cfg) == (

@@ -2,9 +2,9 @@ import jax
 import numpy as np
 import pytest
 
-from ttamm_tpu.models import parse_model_config
-from ttamm_tpu.train import create_train_state, load_checkpoint, save_checkpoint
-from ttamm_tpu.train.checkpoint import checkpoint_filename
+from ttamm.models import parse_model_config
+from ttamm.train import create_train_state, load_checkpoint, save_checkpoint
+from ttamm.train.checkpoint import checkpoint_filename
 
 
 def _cfg():
@@ -63,7 +63,7 @@ def test_checkpoint_shape_mismatch_detected(tmp_path):
 
 
 def test_async_checkpointer_matches_sync(tmp_path):
-    from ttamm_tpu.train.checkpoint import AsyncCheckpointer
+    from ttamm.train.checkpoint import AsyncCheckpointer
 
     cfg = _cfg()
     state = create_train_state(jax.random.key(0), cfg, num_users=5, num_items=6)
@@ -106,7 +106,7 @@ def test_async_checkpointer_matches_sync(tmp_path):
 
 
 def test_async_checkpointer_orders_same_file_writes(tmp_path):
-    from ttamm_tpu.train.checkpoint import AsyncCheckpointer
+    from ttamm.train.checkpoint import AsyncCheckpointer
 
     cfg = _cfg()
     ckpt = AsyncCheckpointer()
@@ -138,7 +138,7 @@ def test_async_checkpointer_orders_same_file_writes(tmp_path):
 
 
 def test_async_checkpointer_surfaces_errors(tmp_path):
-    from ttamm_tpu.train.checkpoint import AsyncCheckpointer
+    from ttamm.train.checkpoint import AsyncCheckpointer
 
     cfg = _cfg()
     state = create_train_state(jax.random.key(0), cfg, num_users=5, num_items=6)

@@ -2,7 +2,7 @@ from pathlib import Path
 
 import pytest
 
-from ttamm_tpu.utils import (
+from ttamm.utils import (
     clone_config,
     expand_grid,
     get_by_dotted_path,
@@ -47,3 +47,12 @@ def test_expand_grid_names_and_overrides():
     assert names == ["base_sweep00", "base_sweep01"]
     assert runs[1][1] == {"training.lr": 2, "training.bs": 8}
     assert runs[1][0]["training"]["lr"] == 2
+
+
+@pytest.mark.parametrize("key", ["use_pallas", "cal_use_pallas"])
+def test_removed_kernel_switch_fails_clearly(tmp_path: Path, key: str):
+    from ttamm.pipelines import run_training
+
+    cfg = {"data": {"root": str(tmp_path / "absent")}, "training": {key: True}}
+    with pytest.raises(ValueError, match=f"training.{key} is no longer a setting"):
+        run_training(cfg)

@@ -3,7 +3,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ttamm_tpu.models import init_tower, parse_tower_config, tower_forward
+from ttamm.models import init_tower, parse_tower_config, tower_forward
 
 
 def _gated_cfg(feature_dim: int):
@@ -118,8 +118,8 @@ def test_concat_fusion_projection():
 
 
 def test_tower_gate_values_range_and_consistency():
-    from ttamm_tpu.evaluation import summarize_gate_values
-    from ttamm_tpu.models.encoders import tower_gate_values
+    from ttamm.evaluation import summarize_gate_values
+    from ttamm.models.encoders import tower_gate_values
 
     cfg = _gated_cfg(feature_dim=5)
     table, dense = init_tower(jax.random.key(0), cfg, num_embeddings=10)
@@ -133,7 +133,7 @@ def test_tower_gate_values_range_and_consistency():
     assert np.all(g > 0.0) and np.all(g < 1.0)
 
     # the blend the gate reports must equal tower_forward's output
-    from ttamm_tpu.models.encoders import apply_feature_encoder
+    from ttamm.models.encoders import apply_feature_encoder
 
     feat_repr = apply_feature_encoder(dense, cfg, feats, train=False, dropout_rng=None)
     blended = gate * rows + (1.0 - gate) * feat_repr

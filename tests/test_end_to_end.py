@@ -10,9 +10,9 @@ from pathlib import Path
 import numpy as np
 import pytest
 
-from ttamm_tpu.data.synthetic import write_synthetic_csvs
-from ttamm_tpu.pipelines import run_training
-from ttamm_tpu.utils import clone_config
+from ttamm.data.synthetic import write_synthetic_csvs
+from ttamm.pipelines import run_training
+from ttamm.utils import clone_config
 
 
 def _config(data_dir: Path, artifact_dir: Path) -> dict:
@@ -138,7 +138,7 @@ def test_end_to_end_run_and_artifacts(synth_dir, tmp_path):
     assert result.examples_per_second is not None and result.examples_per_second > 0
 
     # saved index is loadable and searchable
-    from ttamm_tpu.serve import FlatIndex
+    from ttamm.serve import FlatIndex
 
     index = FlatIndex.load(artifact_dir / "items.index")
     emb = np.load(artifact_dir / "item_embeddings.npy")
@@ -153,7 +153,7 @@ def test_serving_score_dtype_forced_and_auto(synth_dir, tmp_path):
     """The serving: config block controls the exported index precision:
     forced values skip the gate; `auto` runs the bf16 recall gate against
     the final validation eval and persists its decision in the header."""
-    from ttamm_tpu.serve import FlatIndex
+    from ttamm.serve import FlatIndex
 
     artifact_dir = tmp_path / "forced"
     config = _config(synth_dir, artifact_dir)

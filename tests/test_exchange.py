@@ -12,8 +12,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ttamm_tpu.parallel import MeshConfig, build_mesh
-from ttamm_tpu.parallel.exchange import (
+from ttamm.parallel import MeshConfig, build_mesh
+from ttamm.parallel.exchange import (
     make_exchange_lookup,
     padded_exchange_lookup,
     route_by_owner,
@@ -132,8 +132,8 @@ def test_ragged_exchange_routing_matches_take(monkeypatch, ids_fn):
     offset bookkeeping (counts/starts matrices, recv offsets, return-trip
     landing slots) — with only the collective swapped for a semantics-
     faithful emulation (XLA:CPU has no ragged-all-to-all thunk). The
-    hardware lowering itself is exercised by
-    ``scripts/check_ragged_exchange.py`` on the attached chip."""
+    GPU lowering itself is exercised by ``scripts/check_ragged_exchange.py``
+    and ``chip_smoke.py --multi``."""
     monkeypatch.setattr(
         jax.lax, "ragged_all_to_all", _emulated_ragged_all_to_all
     )

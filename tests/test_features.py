@@ -2,7 +2,7 @@ import numpy as np
 import pandas as pd
 import pytest
 
-from ttamm_tpu.data import (
+from ttamm.data import (
     build_item_feature_matrix,
     build_user_feature_matrix,
     parse_category_tokens,

@@ -1,4 +1,4 @@
-"""Communication-pattern tests on the compiled sharded step (VERDICT r1 #1).
+"""Communication-pattern tests on the compiled sharded step.
 
 Numeric equivalence tests can't see whether the partitioner lowered the
 row-sharded table ops efficiently — a correctness-equivalent compilation
@@ -20,9 +20,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from ttamm_tpu.data import pack_positives
-from ttamm_tpu.models import parse_model_config
-from ttamm_tpu.parallel import (
+from ttamm.data import pack_positives
+from ttamm.models import parse_model_config
+from ttamm.parallel import (
     MeshConfig,
     build_mesh,
     make_sharded_train_step,
@@ -31,13 +31,13 @@ from ttamm_tpu.parallel import (
     place_data,
     place_state,
 )
-from ttamm_tpu.parallel.hlo_inspect import (
+from ttamm.parallel.hlo_inspect import (
     assert_no_table_sized_collectives,
     collective_summary,
 )
-from ttamm_tpu.train import TrainStepConfig, create_train_state
-from ttamm_tpu.train.optim import parse_dense_opt_config
-from ttamm_tpu.train.state import BatchData
+from ttamm.train import TrainStepConfig, create_train_state
+from ttamm.train.optim import parse_dense_opt_config
+from ttamm.train.state import BatchData
 
 B, NEG, F, D = 64, 3, 16, 64
 
@@ -49,7 +49,6 @@ def _compiled_step_hlo(
     exchange: str = "gspmd",
     tensor_parallel: bool = False,
     comm_dtype: str = "float32",
-    use_pallas: bool | None = None,
     update_routing: str = "allgather",
     lowered_text: bool = False,
 ) -> str:
@@ -101,7 +100,6 @@ def _compiled_step_hlo(
         ),
         embedding_exchange=exchange,
         comm_dtype=comm_dtype,
-        use_pallas=use_pallas,
         update_routing=update_routing,
     )
     mesh = build_mesh(MeshConfig(data_parallel=2, model_parallel=4))
@@ -190,14 +188,14 @@ def test_alltoall_exchange_step_no_table_sized_collectives():
 
 
 def test_mesh_eval_no_corpus_sized_collectives():
-    """The mesh eval sweep (VERDICT r2 #5): with the corpus row-sharded and
+    """The mesh eval sweep: with the corpus row-sharded and
     the shard-mapped distributed top-k, no collective may move anything
     near the [N, D] item-embedding slab — only [B, k]-sized local-winner
     merges cross links."""
     from jax.sharding import NamedSharding, PartitionSpec as P
 
-    from ttamm_tpu.evaluation.retrieval import _scan_encode_search_hits
-    from ttamm_tpu.parallel.hlo_inspect import oversized_collectives
+    from ttamm.evaluation.retrieval import _scan_encode_search_hits
+    from ttamm.parallel.hlo_inspect import oversized_collectives
 
     rows = 4096  # users AND items (reuses the step helper's model shapes)
     mc = {
@@ -230,7 +228,7 @@ def test_mesh_eval_no_corpus_sized_collectives():
         category_ids=jnp.asarray(rng.integers(0, 4, rows).astype(np.int32)),
     )
     mesh = build_mesh(MeshConfig(data_parallel=2, model_parallel=4))
-    from ttamm_tpu.parallel import pad_batch_data, pad_state_rows, place_data, place_state
+    from ttamm.parallel import pad_batch_data, pad_state_rows, place_data, place_state
 
     pstate = place_state(mesh, pad_state_rows(state, 4))
     pdata = place_data(mesh, pad_batch_data(data, 4))
@@ -255,18 +253,20 @@ def test_mesh_eval_no_corpus_sized_collectives():
 
 def test_comm_bf16_emits_bf16_row_grad_allgathers():
     """comm_dtype='bfloat16' must put bf16 on the wire of the explicit
-    shard_map exchange (the Pallas sparse-update path — the TPU
-    production configuration; kernels interpret on CPU). Pinned on the
-    LOWERED program (our emission): the XLA:CPU backend widens bf16
-    collectives back to f32 during backend optimization (observed), but
-    XLA:TPU executes them natively — the compiled-text pin would test
-    the CPU backend, not our code. The barrier in comm_cast /
-    sharded_sparse_adam_update is load-bearing: without it XLA hoists
-    the converts across the collective even at emission level."""
+    shard_map exchange (the shard-local owner-routed sparse update).
+    Pinned on the LOWERED program (our emission): the XLA:CPU backend
+    widens bf16 collectives back to f32 during backend optimization
+    (observed), while accelerator backends execute them natively — the
+    compiled-text pin would test the CPU backend, not our code. The
+    barrier in sharded_sparse_adam_update is load-bearing: without it XLA
+    hoists the converts across the collective even at emission level."""
     rows = 8192
-    low_f32 = _compiled_step_hlo(rows, use_pallas=True, lowered_text=True)
+    low_f32 = _compiled_step_hlo(
+        rows, update_routing="owner_unchecked", lowered_text=True
+    )
     low_bf16 = _compiled_step_hlo(
-        rows, comm_dtype="bfloat16", use_pallas=True, lowered_text=True
+        rows, comm_dtype="bfloat16", update_routing="owner_unchecked",
+        lowered_text=True,
     )
 
     def bf16_gathers(txt):
@@ -283,36 +283,28 @@ def test_comm_bf16_emits_bf16_row_grad_allgathers():
 
 
 def test_owner_routing_shrinks_update_allgather_widths():
-    """Round-5 owner routing: the sparse-update row-grad all-gathers must
-    be emitted at the compacted CAPACITY width (~1/mp of the full batch),
+    """Owner routing: the sparse-update row-grad all-gathers must be
+    emitted at the compacted CAPACITY width (~1/mp of the full batch),
     not the full lane width. Pinned on the LOWERED program like the
     comm_dtype test (emission is ours; backends may rewrite). On the 2x4
     mesh at B=64/NEG=3: item lanes are 256 global (128 local, capacity
-    64), so the allgather routing emits a [128,64]->[256,64] grad gather
-    while owner routing emits [64,64]->[128,64]. The safe 'owner' variant
-    additionally carries the overflow conditional (fallback branch =
-    full-width gathers, executed only on capacity overflow);
-    'owner_unchecked' must not."""
+    64), so the full allgather routing gathers [128,64]->[256,64] while
+    owner routing gathers [64,64]->[128,64]. The safe 'owner' variant
+    carries the overflow conditional (fallback branch = full-width
+    gathers, executed only on capacity overflow); 'owner_unchecked' must
+    not. Operand and result types share the MLIR line, so the checks key
+    on the RESULT width marker."""
     rows = 4096
 
     def gather_lines(txt):
         return [l for l in txt.splitlines() if "all_gather" in l]
 
-    low_ag = _compiled_step_hlo(
-        rows, use_pallas=True, lowered_text=True
-    )
     low_unc = _compiled_step_hlo(
-        rows, use_pallas=True, update_routing="owner_unchecked",
-        lowered_text=True,
+        rows, update_routing="owner_unchecked", lowered_text=True
     )
     low_own = _compiled_step_hlo(
-        rows, use_pallas=True, update_routing="owner", lowered_text=True
+        rows, update_routing="owner", lowered_text=True
     )
-
-    # Baseline: the full-width [128,64]->[256,64] item grad gather is
-    # present (operand and result types share the MLIR line, so key on
-    # the full-width RESULT marker).
-    assert any("256x64" in l for l in gather_lines(low_ag))
 
     # Unchecked owner: capacity-width gathers only ([64,64]->[128,64] for
     # items) — the full-width gather is GONE (no fallback branch).

@@ -7,7 +7,7 @@ import urllib.request
 import numpy as np
 import pytest
 
-from ttamm_tpu.serve import RetrievalService, build_flat_index, start_in_thread
+from ttamm.serve import RetrievalService, build_flat_index, start_in_thread
 
 
 @pytest.fixture(scope="module")

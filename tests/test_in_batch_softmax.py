@@ -4,12 +4,12 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from ttamm_tpu.data import pack_positives
-from ttamm_tpu.models import parse_model_config
-from ttamm_tpu.train import TrainStepConfig, create_train_state, make_train_step
-from ttamm_tpu.train.step import _in_batch_softmax_loss, make_eval_loss_step
-from ttamm_tpu.train.optim import parse_dense_opt_config
-from ttamm_tpu.train.state import BatchData
+from ttamm.data import pack_positives
+from ttamm.models import parse_model_config
+from ttamm.train import TrainStepConfig, create_train_state, make_train_step
+from ttamm.train.step import _in_batch_softmax_loss, make_eval_loss_step
+from ttamm.train.optim import parse_dense_opt_config
+from ttamm.train.state import BatchData
 
 
 def test_in_batch_softmax_loss_matches_manual():
@@ -195,8 +195,8 @@ def test_train_step_threads_logq_through_batch_data():
 
 
 def test_batch_data_logq_sharding_and_padding():
-    from ttamm_tpu.parallel.sharding import data_shardings, pad_batch_data
-    from ttamm_tpu.parallel.mesh import MeshConfig, build_mesh
+    from ttamm.parallel.sharding import data_shardings, pad_batch_data
+    from ttamm.parallel.mesh import MeshConfig, build_mesh
 
     data = BatchData(
         user_features=jnp.zeros((5, 3)),

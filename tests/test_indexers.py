@@ -1,6 +1,6 @@
 import pytest
 
-from ttamm_tpu.data import build_index_mapping
+from ttamm.data import build_index_mapping
 
 
 def test_order_preservation_and_roundtrip():

@@ -7,8 +7,8 @@ from pathlib import Path
 import pandas as pd
 import pytest
 
-from ttamm_tpu.data.loaders import load_books, load_dataset, load_interactions
-from ttamm_tpu.data.preprocessing import build_training_dataset
+from ttamm.data.loaders import load_books, load_dataset, load_interactions
+from ttamm.data.preprocessing import build_training_dataset
 
 DATA_DIR = Path(__file__).resolve().parent.parent / "data"
 

@@ -1,6 +1,6 @@
 import pytest
 
-from ttamm_tpu.evaluation import compute_ranking_metrics, per_user_metrics
+from ttamm.evaluation import compute_ranking_metrics, per_user_metrics
 
 
 def test_per_user_hand_computed_at_1():

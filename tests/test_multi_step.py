@@ -4,16 +4,16 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from ttamm_tpu.data import pack_positives
-from ttamm_tpu.models import parse_model_config
-from ttamm_tpu.train import (
+from ttamm.data import pack_positives
+from ttamm.models import parse_model_config
+from ttamm.train import (
     TrainStepConfig,
     create_train_state,
     make_train_step,
 )
-from ttamm_tpu.train.step import make_multi_train_step
-from ttamm_tpu.train.optim import parse_dense_opt_config
-from ttamm_tpu.train.state import BatchData
+from ttamm.train.step import make_multi_train_step
+from ttamm.train.optim import parse_dense_opt_config
+from ttamm.train.state import BatchData
 
 
 def test_multi_step_equivalent_to_single_steps():

@@ -5,10 +5,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ttamm_tpu.ops import (
+from ttamm.ops import (
     bce_with_logits,
     category_alignment_loss,
-    coalesce_row_grads,
     init_sparse_adam,
     mips_topk,
     sparse_adam_update,
@@ -54,15 +53,16 @@ def test_mips_topk_mask_rows_excluded():
 
 
 def test_coalesce_row_grads_sums_duplicates():
+    from ttamm.parallel.sparse_update import _coalesce_sorted
+
     idx = jnp.array([3, 1, 3, 3, 2], jnp.int32)
     grads = jnp.arange(10, dtype=jnp.float32).reshape(5, 2)
-    targets, summed = coalesce_row_grads(idx, grads, scratch_row=99)
-    targets = np.asarray(targets)
-    summed = np.asarray(summed)
+    targets, summed, is_head, _ = _coalesce_sorted(idx, grads, head_init=-1)
+    assert np.asarray(is_head).sum() == 3
     by_row = {}
-    for t, g in zip(targets, summed):
-        if t != 99:
-            by_row[int(t)] = g
+    for t, g in zip(np.asarray(targets), np.asarray(summed)):
+        by_row.setdefault(int(t), g)
+        assert np.allclose(by_row[int(t)], g)  # every duplicate lane agrees
     assert np.allclose(by_row[1], [2, 3])
     assert np.allclose(by_row[2], [8, 9])
     assert np.allclose(by_row[3], np.array([0, 1]) + [4, 5] + np.array([6, 7]))
@@ -141,11 +141,11 @@ def test_packed_moments_state_roundtrip_and_views():
     """create_train_state(packed_moments=True) produces packed sparse
     states whose m/v views match a fresh separate-layout state, and the
     jitted train step runs on it."""
-    from ttamm_tpu.models import parse_model_config
-    from ttamm_tpu.train import TrainStepConfig, create_train_state, make_train_step
-    from ttamm_tpu.train.optim import parse_dense_opt_config
-    from ttamm_tpu.train.state import BatchData
-    from ttamm_tpu.ops import SparseAdamStatePacked
+    from ttamm.models import parse_model_config
+    from ttamm.train import TrainStepConfig, create_train_state, make_train_step
+    from ttamm.train.optim import parse_dense_opt_config
+    from ttamm.train.state import BatchData
+    from ttamm.ops import SparseAdamStatePacked
 
     cfg = parse_model_config(
         {
@@ -262,7 +262,7 @@ def test_mips_topk_group_exact_with_ties_and_mask():
 def test_mips_topk_group_blocked_matches_argsort():
     # Tiny budget forces the query-blocking scan (with a padded remainder
     # block) plus per-block mask slicing.
-    from ttamm_tpu.ops.topk import _group_exact_topk
+    from ttamm.ops.topk import _group_exact_topk
 
     rng = np.random.default_rng(11)
     items = rng.normal(0, 1, (57, 8)).astype(np.float32)
@@ -272,7 +272,7 @@ def test_mips_topk_group_blocked_matches_argsort():
     mask[4, 0] = 13
     scores, idx = _group_exact_topk(
         jnp.asarray(queries), jnp.asarray(items), 5, jnp.asarray(mask), 57,
-        scores_bytes_budget=2 * 128 * 4,
+        query_block=2,
     )
     full = queries @ items.T
     full[0, [0, 1, 2]] = -np.inf
@@ -288,7 +288,7 @@ def test_mips_topk_group_blocked_matches_argsort():
 def test_mips_topk_group_select_variants_match():
     # The one-hot-matmul candidate selection must be bit-identical to the
     # row-gather selection (multiply-by-1.0 in HIGHEST precision is exact).
-    from ttamm_tpu.ops.topk import _group_exact_topk
+    from ttamm.ops.topk import _group_exact_topk
 
     rng = np.random.default_rng(12)
     items = rng.normal(0, 1, (300, 16)).astype(np.float32)
@@ -457,7 +457,7 @@ def test_mips_topk_num_valid_rows_matches_unpadded():
     return exactly the unpadded search's results (pad rows never appear,
     even when real scores are all negative and the zero pad rows would
     otherwise win)."""
-    from ttamm_tpu.ops.topk import mips_topk
+    from ttamm.ops.topk import mips_topk
 
     rng = np.random.default_rng(17)
     n, d = 300, 16
@@ -480,54 +480,3 @@ def test_mips_topk_num_valid_rows_matches_unpadded():
             np.asarray(s0), np.asarray(s1), atol=1e-6
         )
         assert np.asarray(i1).max() < n
-
-
-def test_fused_large_k_reroutes_to_slab():
-    """A k whose fused-rescore VMEM buffers exceed the ceiling must fall
-    back to the slab algorithms instead of dying inside Mosaic (ADVICE
-    r3). On CPU the reroute is also what makes explicit 'fused' runnable
-    here at all (the kernels need a TPU)."""
-    from ttamm_tpu.ops.topk import _fused_rescore_fits
-
-    # Typical serving shape fits; a 128-deep search over D=512 does not.
-    assert _fused_rescore_fits(20, 0, 2000, 128, 4)
-    assert not _fused_rescore_fits(128, 0, 2000, 512, 4)
-
-    rng = np.random.default_rng(7)
-    items = rng.normal(0, 1, (17408, 512)).astype(np.float32)
-    queries = rng.normal(0, 1, (8, 512)).astype(np.float32)
-    scores, idx = mips_topk(
-        jnp.asarray(queries), jnp.asarray(items), k=128, algorithm="fused"
-    )
-    full = queries @ items.T
-    expected_idx = np.argsort(-full, axis=1)[:, :128]
-    assert np.array_equal(np.asarray(idx), expected_idx)
-
-
-def test_fused_bf16_corpus_bit_identical_to_fp32():
-    """VERDICT r3 #8: in the FUSED path, score_dtype only changes the
-    corpus STORAGE dtype — both modes round inputs to bf16 and accumulate
-    f32 (maxima/candidates/merge all stay f32; the slab that bf16 mode
-    rounds in the slab algorithms never exists). Rankings AND scores must
-    be bit-identical, which is what lets fp32-exact serving run on a
-    bf16-stored corpus at the bf16 throughput (RESULTS.md round 4)."""
-    from ttamm_tpu.ops.topk import _fused_groupmax_topk
-
-    rng = np.random.default_rng(0)
-    n, dim, b, k = 6144, 64, 16, 5
-    items = rng.normal(0, 1, (n, dim)).astype(np.float32)
-    q = rng.normal(0, 1, (b, dim)).astype(np.float32)
-    mask = rng.integers(0, n, (b, 4)).astype(np.int32)
-
-    for m in (None, jnp.asarray(mask)):
-        sf, idf = _fused_groupmax_topk(
-            jnp.asarray(q), jnp.asarray(items), k, n,
-            mask_rows=m, use_pallas=False, interpret=True,
-        )
-        sb, idb = _fused_groupmax_topk(
-            jnp.asarray(q).astype(jnp.bfloat16),
-            jnp.asarray(items).astype(jnp.bfloat16), k, n,
-            mask_rows=m, use_pallas=False, interpret=True,
-        )
-        np.testing.assert_array_equal(np.asarray(idf), np.asarray(idb))
-        np.testing.assert_array_equal(np.asarray(sf), np.asarray(sb))

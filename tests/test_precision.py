@@ -4,7 +4,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from ttamm_tpu.models import init_tower, parse_tower_config, tower_forward
+from ttamm.models import init_tower, parse_tower_config, tower_forward
 
 
 def _cfg(precision_dtype):
@@ -41,7 +41,7 @@ def test_bf16_tower_close_to_fp32():
 
 
 def test_model_precision_parsing():
-    from ttamm_tpu.models import parse_model_config
+    from ttamm.models import parse_model_config
     import pytest
 
     cfg = parse_model_config(
@@ -73,10 +73,10 @@ def test_bf16_feature_matrices_train_and_eval():
     import jax.numpy as jnp
     import numpy as np
 
-    from ttamm_tpu.data import pack_positives
-    from ttamm_tpu.models import parse_model_config
-    from ttamm_tpu.train import TrainStepConfig, create_train_state, make_train_step
-    from ttamm_tpu.train.state import BatchData
+    from ttamm.data import pack_positives
+    from ttamm.models import parse_model_config
+    from ttamm.train import TrainStepConfig, create_train_state, make_train_step
+    from ttamm.train.state import BatchData
 
     U, I, F, B = 30, 24, 10, 8
     cfg = parse_model_config(
@@ -129,7 +129,7 @@ def test_bf16_feature_matrices_train_and_eval():
     # Eval path: encode + plan-based retrieval metrics run on bf16 features.
     import pandas as pd
 
-    from ttamm_tpu.evaluation import build_eval_plan, evaluate_retrieval_metrics
+    from ttamm.evaluation import build_eval_plan, evaluate_retrieval_metrics
 
     val = pd.DataFrame({"user_idx": [0, 1, 2], "item_idx": [3, 4, 5]})
     plan = build_eval_plan(

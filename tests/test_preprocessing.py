@@ -1,6 +1,6 @@
 import pandas as pd
 
-from ttamm_tpu.data import DatasetArtifacts, build_training_dataset
+from ttamm.data import DatasetArtifacts, build_training_dataset
 
 
 def _artifacts() -> DatasetArtifacts:

@@ -1,9 +1,9 @@
 import json
 from pathlib import Path
 
-from ttamm_tpu.evaluation import compute_ranking_metrics
-from ttamm_tpu.pipelines import TrainingHistory, TrainingResult
-from ttamm_tpu.reporting import (
+from ttamm.evaluation import compute_ranking_metrics
+from ttamm.pipelines import TrainingHistory, TrainingResult
+from ttamm.reporting import (
     save_loss_curves,
     write_benchmark_report,
     write_embedding_summary,

@@ -8,11 +8,11 @@ import numpy as np
 import pandas as pd
 import pytest
 
-from ttamm_tpu.data import pack_positives
-from ttamm_tpu.evaluation import compute_ranking_metrics, evaluate_retrieval
-from ttamm_tpu.models import parse_model_config
-from ttamm_tpu.train import create_train_state
-from ttamm_tpu.train.state import BatchData
+from ttamm.data import pack_positives
+from ttamm.evaluation import compute_ranking_metrics, evaluate_retrieval
+from ttamm.models import parse_model_config
+from ttamm.train import create_train_state
+from ttamm.train.state import BatchData
 
 
 def _setup(num_users=20, num_items=15, seed=0):
@@ -152,7 +152,7 @@ def test_hit_matrix_metrics_match_dict_path(seed, block_heavy):
     """evaluate_retrieval_metrics (device-side hit matrix) must equal
     compute_ranking_metrics over the dict path exactly — including the
     GT-append quirk and the search_limit cap."""
-    from ttamm_tpu.evaluation import (
+    from ttamm.evaluation import (
         build_eval_plan,
         compute_ranking_metrics,
         evaluate_retrieval_metrics,
@@ -210,7 +210,7 @@ def test_hit_matrix_metrics_match_dict_path(seed, block_heavy):
 def test_eval_plan_matches_batched_path():
     """The one-dispatch scan path (EvalPlan) must reproduce the per-batch
     path (and therefore the reference post-processing) exactly."""
-    from ttamm_tpu.evaluation import build_eval_plan
+    from ttamm.evaluation import build_eval_plan
 
     cfg, state, data, positives, rng = _setup()
     num_users, num_items = 20, 15
@@ -249,11 +249,11 @@ def test_sharded_mesh_eval_matches_local(seed, block_heavy):
     >= rows_per_shard each shard returns every row it owns, otherwise its
     top-k suffices; blocked ids and zero-pad rows are masked inside the
     shard-local search)."""
-    from ttamm_tpu.evaluation import (
+    from ttamm.evaluation import (
         build_eval_plan,
         evaluate_retrieval_metrics,
     )
-    from ttamm_tpu.parallel import MeshConfig, build_mesh
+    from ttamm.parallel import MeshConfig, build_mesh
 
     cfg, state, data, positives, rng = _setup(seed=seed)
     num_users, num_items = 20, 15
@@ -299,13 +299,13 @@ def test_sharded_mesh_eval_matches_local(seed, block_heavy):
 
 def test_bucketed_plan_heavy_user_matches_dict_path():
     """One heavy user must not drag the whole eval onto full-width masks:
-    build_eval_plan buckets users at the fused mask gate (32), and the
+    build_eval_plan buckets users at the narrow mask width (32), and the
     bucketed scan must reproduce the dict path's metrics exactly."""
-    from ttamm_tpu.evaluation import (
+    from ttamm.evaluation import (
         build_eval_plan,
         evaluate_retrieval_metrics,
     )
-    from ttamm_tpu.ops.topk import FUSED_MASK_WIDTH_MAX
+    from ttamm.evaluation.retrieval import NARROW_MASK_WIDTH
 
     num_users, num_items = 12, 120
     cfg, state, data, _, rng = _setup(
@@ -330,7 +330,7 @@ def test_bucketed_plan_heavy_user_matches_dict_path():
         k_values=k_values, user_batch_size=5,
     )
     assert plan.wide is not None
-    assert plan.blocked_rows.shape[1] == FUSED_MASK_WIDTH_MAX
+    assert plan.blocked_rows.shape[1] == NARROW_MASK_WIDTH
     assert plan.wide.blocked_rows.shape[1] >= 80
     assert {u for b in plan.wide.batches for u in b} == {3}
 
@@ -366,11 +366,11 @@ def test_bucketed_plan_heavy_user_matches_dict_path():
 def test_bucketed_plan_sharded_mesh_matches_local():
     """The bucketed (narrow+wide) eval under a model-sharded mesh must
     match the local bucketed metrics exactly."""
-    from ttamm_tpu.evaluation import (
+    from ttamm.evaluation import (
         build_eval_plan,
         evaluate_retrieval_metrics,
     )
-    from ttamm_tpu.parallel import MeshConfig, build_mesh
+    from ttamm.parallel import MeshConfig, build_mesh
 
     num_users, num_items = 10, 96
     cfg, state, data, _, rng = _setup(
@@ -412,8 +412,8 @@ def test_bucketed_plan_sharded_mesh_matches_local():
 def test_capped_blocked_rows_cannot_leak_train_positives():
     """A blocked matrix packed with a positives_cap must be rebuilt by
     build_eval_plan: truncated blocked rows would let the eval recommend
-    the user's own train positives (VERDICT r4 #8)."""
-    from ttamm_tpu.evaluation import build_eval_plan
+    the user's own train positives."""
+    from ttamm.evaluation import build_eval_plan
 
     num_users, num_items = 6, 60
     cfg, state, data, _, rng = _setup(

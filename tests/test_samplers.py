@@ -2,8 +2,8 @@ import jax
 import numpy as np
 import pytest
 
-from ttamm_tpu.data import pack_positives
-from ttamm_tpu.ops import sample_negative_items
+from ttamm.data import pack_positives
+from ttamm.ops import sample_negative_items
 
 
 def test_negatives_exclude_positives_and_shape():

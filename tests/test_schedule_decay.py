@@ -11,17 +11,17 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ttamm_tpu.data import pack_positives
-from ttamm_tpu.models import parse_model_config
-from ttamm_tpu.ops.sparse_adam import (
+from ttamm.data import pack_positives
+from ttamm.models import parse_model_config
+from ttamm.ops.sparse_adam import (
     SparseAdamState,
     init_sparse_adam,
     sparse_adam_update,
     sparse_adam_update_packed,
     sparse_adam_update_sorted,
 )
-from ttamm_tpu.train import TrainStepConfig, create_train_state, make_train_step
-from ttamm_tpu.train.optim import (
+from ttamm.train import TrainStepConfig, create_train_state, make_train_step
+from ttamm.train.optim import (
     DenseOptConfig,
     DenseOptState,
     dense_opt_update,
@@ -29,7 +29,7 @@ from ttamm_tpu.train.optim import (
     lr_scale,
     parse_dense_opt_config,
 )
-from ttamm_tpu.train.state import BatchData
+from ttamm.train.state import BatchData
 
 
 def test_lr_scale_endpoints():
@@ -115,12 +115,12 @@ def _manual_sparse_adamw(table, m, v, idx_list, grads, lr, wd, t=1):
     return table
 
 
-@pytest.mark.parametrize("variant", ["sorted", "packed", "pallas_interpret"])
+@pytest.mark.parametrize("variant", ["sorted", "packed", "dispatch_packed"])
 def test_sparse_weight_decay_touched_rows_only(variant):
     rng = np.random.default_rng(1)
     rows, dim = 10, 8
     table = rng.normal(size=(rows, dim)).astype(np.float32)
-    idx = np.array([2, 5, 2, 7, 5, 5, 2, 7], np.int32)  # len 8 = DMA block
+    idx = np.array([2, 5, 2, 7, 5, 5, 2, 7], np.int32)
     grads = rng.normal(size=(8, dim)).astype(np.float32)
     want = _manual_sparse_adamw(
         table, np.zeros_like(table), np.zeros_like(table),
@@ -133,12 +133,12 @@ def test_sparse_weight_decay_touched_rows_only(variant):
             t, state, jnp.asarray(idx), jnp.asarray(grads),
             lr=0.05, weight_decay=0.1,
         )
-    elif variant == "pallas_interpret":
-        # The DMA-kernel path (auto-interprets off-TPU).
-        state = init_sparse_adam(t)
+    elif variant == "dispatch_packed":
+        # The public entry picks the packed path from the state's layout.
+        state = init_sparse_adam(t, packed=True)
         new_table, _ = sparse_adam_update(
             t, state, jnp.asarray(idx), jnp.asarray(grads),
-            lr=0.05, weight_decay=0.1, use_pallas=True,
+            lr=0.05, weight_decay=0.1,
         )
     else:
         state = init_sparse_adam(t)
@@ -147,12 +147,8 @@ def test_sparse_weight_decay_touched_rows_only(variant):
             lr=0.05, weight_decay=0.1,
         )
     got = np.asarray(new_table)
-    # The Pallas path routes duplicate lanes to the table's LAST row (the
-    # scratch row init_model appends); its value is never read — exclude
-    # it from the comparison for that variant.
-    real = rows - 1 if variant == "pallas_interpret" else rows
-    assert np.allclose(got[:real], want[:real], atol=1e-5)
-    untouched = [r for r in range(real) if r not in {2, 5, 7}]
+    assert np.allclose(got, want, atol=1e-5)
+    untouched = [r for r in range(rows) if r not in {2, 5, 7}]
     assert np.array_equal(got[untouched], table[untouched])  # no decay
 
 

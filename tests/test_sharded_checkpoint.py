@@ -11,13 +11,13 @@ import numpy as np
 import pytest
 
 from test_parallel import _setup
-from ttamm_tpu.parallel import (
+from ttamm.parallel import (
     MeshConfig,
     build_mesh,
     pad_state_rows,
     place_state,
 )
-from ttamm_tpu.train import (
+from ttamm.train import (
     create_train_state,
     load_checkpoint,
     load_sharded_checkpoint,
@@ -156,7 +156,7 @@ def test_load_checkpoint_dispatches_to_sharded_dir(tmp_path):
 
 
 def test_async_checkpointer_sharded(tmp_path):
-    from ttamm_tpu.train.checkpoint import AsyncCheckpointer
+    from ttamm.train.checkpoint import AsyncCheckpointer
 
     _, _, state = _placed_state(seed=0)
     ckpt = AsyncCheckpointer(sharded=True)
@@ -203,8 +203,8 @@ def test_missing_leaf_raises(tmp_path):
 def test_stale_shard_files_pruned_and_ignored(tmp_path):
     """Re-saving into a directory that holds shard files from a run with
     MORE processes must neither fail coverage validation nor restore the
-    stale rows (ADVICE r3: the 'best'/'last' checkpoint became unloadable
-    after the process count shrank)."""
+    stale rows (the 'best'/'last' checkpoint must stay loadable after the
+    process count shrinks)."""
     _, _, state = _placed_state(seed=0)
     path = save_sharded_checkpoint(
         tmp_path, state, experiment_name="exp", epoch=1,
@@ -240,7 +240,7 @@ def test_stale_shard_files_pruned_and_ignored(tmp_path):
 def test_piece_index_closes_npz_handles(tmp_path):
     """_PieceIndex.close() must release every NpzFile (fd-leak guard);
     load_sharded_checkpoint calls it after assembly."""
-    from ttamm_tpu.train.sharded_checkpoint import _PieceIndex
+    from ttamm.train.sharded_checkpoint import _PieceIndex
 
     _, _, state = _placed_state(seed=0)
     path = save_sharded_checkpoint(

@@ -5,8 +5,8 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import NamedSharding, PartitionSpec as P
 
-from ttamm_tpu.parallel import MODEL_AXIS, MeshConfig, build_mesh
-from ttamm_tpu.parallel.embedding_lookup import make_sharded_lookup
+from ttamm.parallel import MODEL_AXIS, MeshConfig, build_mesh
+from ttamm.parallel.embedding_lookup import make_sharded_lookup
 
 
 def _mesh():

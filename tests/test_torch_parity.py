@@ -12,8 +12,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from ttamm_tpu.ops import bce_with_logits, init_sparse_adam, sparse_adam_update
-from ttamm_tpu.train.optim import (
+from ttamm.ops import bce_with_logits, init_sparse_adam, sparse_adam_update
+from ttamm.train.optim import (
     DenseOptConfig,
     dense_opt_update,
     init_dense_opt,
@@ -135,7 +135,7 @@ def test_gate_matches_torch_reference_math():
         gate_t = net(torch.tensor(np.concatenate([id_repr, feat], axis=1)))
         expected = gate_t * torch.tensor(id_repr) + (1 - gate_t) * torch.tensor(feat)
 
-    from ttamm_tpu.models.encoders import apply_gate
+    from ttamm.models.encoders import apply_gate
 
     dense = {
         "gate": {
@@ -161,7 +161,7 @@ def test_mimic_losses_match_torch_mse():
         torch.tensor(item_aug), torch.tensor(user_emb)
     ).item()
 
-    from ttamm_tpu.models import mimic_forward
+    from ttamm.models import mimic_forward
 
     _, _, lu, li = mimic_forward(
         jnp.asarray(user_aug),

@@ -1,9 +1,9 @@
 import numpy as np
 import pandas as pd
 
-from ttamm_tpu.data import split_train_validation, split_train_validation_test
-from ttamm_tpu.pipelines import EarlyStoppingController, extract_metric_value
-from ttamm_tpu.evaluation import compute_ranking_metrics
+from ttamm.data import split_train_validation, split_train_validation_test
+from ttamm.pipelines import EarlyStoppingController, extract_metric_value
+from ttamm.evaluation import compute_ranking_metrics
 
 
 def _frame():
@@ -78,7 +78,7 @@ def test_early_stopping_min_mode_and_min_delta():
 
 
 def test_pick_steps_per_call_minimizes_dispatches():
-    from ttamm_tpu.pipelines.training import _pick_steps_per_call
+    from ttamm.pipelines.training import _pick_steps_per_call
 
     assert _pick_steps_per_call(0) == 1
     assert _pick_steps_per_call(1) == 1

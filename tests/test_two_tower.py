@@ -5,7 +5,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ttamm_tpu.models import (
+from ttamm.models import (
     init_model,
     model_forward,
     parse_model_config,
